@@ -1,4 +1,4 @@
-// Native template-bank loader for linemod_pose_estimation_tpu.
+// Native template-bank loader for linemod_pose_estimation.
 //
 // The reference loads its banks through cv::FileStorage in C++
 // (readLinemod / readLinemodTemplateParams, rgbdDetector.cpp:1668-1749);

@@ -4,22 +4,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.models import cascade as CC
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.pipeline import DetectionPipeline
-from linemod_pose_estimation_tpu.models.renderer import Renderer
-from linemod_pose_estimation_tpu.models.templates import (
+from linemod_pose_estimation.models import cascade as CC
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.pipeline import DetectionPipeline
+from linemod_pose_estimation.models.renderer import Renderer
+from linemod_pose_estimation.models.templates import (
     DetectorParams,
     RendererGlobals,
     TemplateBank,
     TemplateMetadata,
 )
-from linemod_pose_estimation_tpu.ops.match import Matches
-from linemod_pose_estimation_tpu.utils import geometry as geo
-from linemod_pose_estimation_tpu.utils import pointcloud as pcu
+from linemod_pose_estimation.ops.match import Matches
+from linemod_pose_estimation.utils import geometry as geo
+from linemod_pose_estimation.utils import pointcloud as pcu
 
-BANK = "/root/reference/config/data/boxNew_longDistance_linemod_xtion_renderer_params.yml"
-STL = "/root/reference/config/stl/boxNew.stl"
+from conftest import BANK_PARAMS as BANK, BOX_STL as STL
+
 W, H = 160, 120
 
 
@@ -200,8 +200,8 @@ def test_cluster_member_cap_overflow_keeps_best():
     while score/count still reflect ALL members."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.models.cascade import cluster_matches
-    from linemod_pose_estimation_tpu.ops.match import Matches
+    from linemod_pose_estimation.models.cascade import cluster_matches
+    from linemod_pose_estimation.ops.match import Matches
 
     K, cap = 32, 8
     # All matches in one vote cell (same position bucket, same depth bin),

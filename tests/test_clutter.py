@@ -16,18 +16,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.models import cascade as CC
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.pipeline import DetectionPipeline
-from linemod_pose_estimation_tpu.models.renderer import Renderer
-from linemod_pose_estimation_tpu.models.templates import (
+from linemod_pose_estimation.models import cascade as CC
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.pipeline import DetectionPipeline
+from linemod_pose_estimation.models.renderer import Renderer
+from linemod_pose_estimation.models.templates import (
     DetectorParams, TemplateBank, TemplateMetadata,
 )
-from linemod_pose_estimation_tpu.utils import pointcloud as pcu
+from linemod_pose_estimation.utils import pointcloud as pcu
 
-from conftest import SHIPPED_BANK, STL_DIR
+from conftest import BANK_PARAMS, BOX_STL
 
-STL = STL_DIR + "/boxNew.stl"
+STL = BOX_STL
 W, H = 640, 480
 BG_MM = 1500.0
 
@@ -36,7 +36,7 @@ BG_MM = 1500.0
 def scene():
     """640x480 cluttered two-instance scene + its organized cloud + the
     trained detector/bank (full reference geometry)."""
-    meta_full, glob = TemplateBank.read_params_yaml(SHIPPED_BANK)
+    meta_full, glob = TemplateBank.read_params_yaml(BANK_PARAMS)
     r = Renderer(STL, W, H, glob.focal_length_x, glob.focal_length_y)
     ids = [40, 700, 1400, 2000]
     det = Detector(DetectorParams())

@@ -4,24 +4,24 @@ scenes, asserting the BASELINE <=1 px / <=1 deg bar (BASELINE.md)."""
 import numpy as np
 import pytest
 
-from conftest import SHIPPED_BANK, STL_DIR
+from conftest import BANK_PARAMS, BOX_STL
 
-from linemod_pose_estimation_tpu import eval as EV
-from linemod_pose_estimation_tpu.models import cascade as CC
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.pipeline import DetectionPipeline
-from linemod_pose_estimation_tpu.models.renderer import Renderer
-from linemod_pose_estimation_tpu.models.templates import (
+from linemod_pose_estimation import eval as EV
+from linemod_pose_estimation.models import cascade as CC
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.pipeline import DetectionPipeline
+from linemod_pose_estimation.models.renderer import Renderer
+from linemod_pose_estimation.models.templates import (
     DetectorParams, TemplateBank, TemplateMetadata,
 )
 
-STL = STL_DIR + "/boxNew.stl"
+STL = BOX_STL
 W, H = 160, 120
 
 
 @pytest.fixture(scope="module")
 def setup():
-    meta_full, glob = TemplateBank.read_params_yaml(SHIPPED_BANK)
+    meta_full, glob = TemplateBank.read_params_yaml(BANK_PARAMS)
     glob.width, glob.height = W, H
     glob.focal_length_x /= 4
     glob.focal_length_y /= 4

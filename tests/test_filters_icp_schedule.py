@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.ops import filters as FL
-from linemod_pose_estimation_tpu.ops import icp as I
+from linemod_pose_estimation.ops import filters as FL
+from linemod_pose_estimation.ops import icp as I
 
 
 def test_rgb_to_hsv_known_colors():

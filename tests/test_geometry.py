@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.utils import geometry as geo
+from linemod_pose_estimation.utils import geometry as geo
 
 
 def random_rotation(rng):
@@ -73,11 +73,11 @@ def test_transforms_compose(rng):
 def test_look_at_matches_shipped_bank_convention():
     """Row 2 of R must be the unit vector along T (camera -> origin), and the
     reference's up reconstruction (-row1) must reproduce R exactly."""
-    from linemod_pose_estimation_tpu.utils import opencv_yaml as oy
+    from conftest import BANK_PARAMS
+    from linemod_pose_estimation.models.templates import _maybe_ungz
+    from linemod_pose_estimation.utils import opencv_yaml as oy
 
-    doc = oy.load(
-        "/root/reference/config/data/boxNew_longDistance_linemod_xtion_renderer_params.yml"
-    )
+    doc = oy.load(_maybe_ungz(BANK_PARAMS))
     for i in [0, 1, 500, 2651]:
         t = doc[f"Template {i}"]
         R, T = t["R"], t["T"].ravel()

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.ops import icp as I
-from linemod_pose_estimation_tpu.utils import geometry as geo
+from linemod_pose_estimation.ops import icp as I
+from linemod_pose_estimation.utils import geometry as geo
 
 
 def make_model(rng, n=256):

@@ -4,7 +4,7 @@ rgbdDetector.cpp:867-1000): recover a 6D pose WITHOUT ICP."""
 import numpy as np
 import jax.numpy as jnp
 
-from linemod_pose_estimation_tpu.ops import local_descriptor as LD
+from linemod_pose_estimation.ops import local_descriptor as LD
 
 
 def make_asymmetric_cloud(rng, n=400):
@@ -33,7 +33,7 @@ def test_shot_descriptor_rigid_invariance(rng):
     t = np.array([0.05, -0.02, 0.3], np.float32)
     pts2 = pts @ R.T + t
 
-    from linemod_pose_estimation_tpu.ops.segmentation import estimate_normals
+    from linemod_pose_estimation.ops.segmentation import estimate_normals
 
     n1, _ = estimate_normals(jnp.asarray(pts), jnp.asarray(valid), k=10)
     n2, _ = estimate_normals(jnp.asarray(pts2), jnp.asarray(valid), k=10)

@@ -5,8 +5,8 @@ location')."""
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.templates import DetectorParams
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.templates import DetectorParams
 
 
 def make_object_patch(rng, size=48):
@@ -116,7 +116,7 @@ def test_response_maps_graded_similarity_lut():
     (linemod.cpp computeResponseMaps) — e.g. a 2-bin-off orientation scores
     2, not 0 (ADVICE.md round-1 finding)."""
     import jax.numpy as jnp
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     for b in range(8):
         quant = jnp.full((4, 4), 1 << b, jnp.uint8)
@@ -132,16 +132,29 @@ def test_response_maps_graded_similarity_lut():
     assert int(R[5, 0, 0]) == 2  # distance 2 to bit3
 
 
-def test_subsample2_u8_matches_strided_slice(rng):
-    """The bitcast lane-pair subsample (production TPU depth level-1 path)
-    must equal n0[:, ::2, ::2] bit-for-bit, including odd-dim fallbacks."""
+@pytest.mark.parametrize("ulps", [0, -2, -1, 1, 2])
+def test_similarity_division_is_exact(ulps):
+    """correct_quotient recovers IEEE float32 25 * raw / count from a
+    quotient up to two ulps off (a GPU's float32 divide), for every
+    (raw, count) pair of counts 1..300; similarity() equals the plain
+    IEEE division cv::linemod does."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import match as M
+    from linemod_pose_estimation.ops import match as M
 
-    for shape in ((3, 480, 640), (2, 64, 96), (1, 63, 96), (1, 64, 95),
-                  (1, 37, 41)):
-        x = jnp.asarray(rng.integers(0, 256, size=shape).astype(np.uint8))
-        got = M.subsample2_u8(x)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      np.asarray(x)[:, ::2, ::2])
+    cnt = np.concatenate([np.full(4 * c + 1, c) for c in range(1, 301)])
+    raw = np.concatenate([np.arange(4 * c + 1) for c in range(1, 301)])
+    a = (25 * raw).astype(np.float32)
+    b = cnt.astype(np.float32)
+    want = a / b
+    q0 = want.copy()
+    step = np.inf if ulps > 0 else -np.inf
+    for _ in range(abs(ulps)):
+        q0 = np.nextafter(q0, np.float32(step)).astype(np.float32)
+    got = np.asarray(M.correct_quotient(jnp.asarray(a), jnp.asarray(b),
+                                        jnp.asarray(q0)))
+    np.testing.assert_array_equal(got, want)
+    sim = np.asarray(M.similarity(jnp.asarray(raw), jnp.asarray(cnt)))
+    np.testing.assert_array_equal(
+        sim, np.float32(100.0) * raw.astype(np.float32)
+        / (np.float32(4.0) * cnt.astype(np.float32)))

@@ -1,11 +1,11 @@
-"""MXU conv-path scoring must equal the gather-based reference path."""
+"""One-hot GEMM scoring must equal the gather-based reference path."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.ops import match as M
+from linemod_pose_estimation.ops import match as M
 
 
 def random_bank(rng, n, fmax=24, extent=30):
@@ -127,7 +127,7 @@ def test_flat_layout_paths_match_template_major(rng):
     the template-major path."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import match as M
+    from linemod_pose_estimation.ops import match as M
 
     n, fmax, ext, T = 24, 16, 24, 8
     Kc = (ext - 1) // T + 1
@@ -153,7 +153,7 @@ def test_flat_layout_paths_match_template_major(rng):
     a = M.select_candidates(raw_nhw, feats.count, vpos, 0.0, 16)
     vposf = M.position_validity_flat(feats.size, T, Hc, Wc)
     b = M.select_candidates_flat(raw_flat, feats.count, vposf, 0.0, 16, Wc)
-    # approx_max_k on tiny input is exact; compare as sets of tuples
+    # Compare as sets of tuples
     # (similarity rounded — raw/(4c)*100 vs raw*(100/(4c)) differ by 1 ulp).
     rows = lambda c: sorted(
         (round(float(c.similarity[i]), 3), int(c.template_id[i]),
@@ -194,9 +194,9 @@ def test_merge_modalities_compacts_live(rng):
 
 
 def test_walk_pallas_noncontiguous_live(rng):
-    """The batched walk's Pallas and XLA paths must agree bit-for-bit on a
-    MERGED dual-modality bank (whose pre-compaction live pattern was the
-    round-4 silent-mis-score bug)."""
+    """The batched walk's Triton kernel (interpret mode) and XLA scan must
+    agree bit-for-bit on a MERGED dual-modality bank (whose pre-compaction
+    live pattern once mis-scored silently)."""
     T1, T0, E0 = 8, 5, 56
     fa = random_bank(rng, 10, fmax=32, extent=E0)
     fb = random_bank(rng, 10, fmax=32, extent=E0)
@@ -212,9 +212,9 @@ def test_walk_pallas_noncontiguous_live(rng):
     )
     R0b = jnp.stack([R0, jnp.roll(R0, 3, axis=2)])
     mx = M.refine_candidates_opencv_batched(
-        R0b, merged, cand, T1, 50.0, E0=E0, fine_T=T0, use_pallas=False)
+        R0b, merged, cand, T1, 50.0, E0=E0, fine_T=T0, triton_walk=False)
     mp = M.refine_candidates_opencv_batched(
-        R0b, merged, cand, T1, 50.0, E0=E0, fine_T=T0, use_pallas=True,
+        R0b, merged, cand, T1, 50.0, E0=E0, fine_T=T0, triton_walk=True,
         interpret=True)
     for name, a, b in zip(mx._fields, mx, mp):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
@@ -222,8 +222,8 @@ def test_walk_pallas_noncontiguous_live(rng):
 
 def test_walk_cond_fallback_on_noncontiguous_live(rng):
     """A bank whose live slots are NOT compacted (hole punched directly,
-    bypassing merge_modalities) must route the use_pallas walk through the
-    in-graph XLA-twin fallback — results still bit-equal."""
+    bypassing merge_modalities) must route the Triton walk through the
+    in-graph XLA-scan guard — results still bit-equal."""
     T1, T0, E0 = 8, 5, 56
     feats = random_bank(rng, 8, fmax=24, extent=E0)
     live = np.asarray(feats.live).copy()
@@ -239,9 +239,9 @@ def test_walk_cond_fallback_on_noncontiguous_live(rng):
         valid=jnp.ones((2, 5), bool),
     )
     mx = M.refine_candidates_opencv_batched(
-        R0b, feats, cand, T1, 50.0, E0=E0, fine_T=T0, use_pallas=False)
+        R0b, feats, cand, T1, 50.0, E0=E0, fine_T=T0, triton_walk=False)
     mp = M.refine_candidates_opencv_batched(
-        R0b, feats, cand, T1, 50.0, E0=E0, fine_T=T0, use_pallas=True,
+        R0b, feats, cand, T1, 50.0, E0=E0, fine_T=T0, triton_walk=True,
         interpret=True)
     for name, a, b in zip(mx._fields, mx, mp):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)

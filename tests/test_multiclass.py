@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from linemod_pose_estimation_tpu.ops import match as M
+from linemod_pose_estimation.ops import match as M
 
 
 def _bank(n, fmax, extent, seed):
@@ -106,24 +106,27 @@ def test_multiclass_equals_per_class(m_cap):
 def test_multiclass_serving_wrapper():
     """MultiClassBatchedMatcher vs per-class BatchedMatcher on a trained
     two-class detector (rendered views of two meshes)."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.renderer import Renderer
-    from linemod_pose_estimation_tpu.models.serving import (
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.renderer import Renderer
+    from linemod_pose_estimation.models.serving import (
         BatchedMatcher, MultiClassBatchedMatcher)
-    from linemod_pose_estimation_tpu.models.templates import (
+    from linemod_pose_estimation.models.templates import (
         DetectorParams, TemplateBank)
-    from conftest import SHIPPED_BANK, STL_DIR
+    from linemod_pose_estimation.utils.stl import Mesh, box_triangles
+    from conftest import BANK_PARAMS, BOX_STL
 
-    meta, glob = TemplateBank.read_params_yaml(SHIPPED_BANK)
+    meta, glob = TemplateBank.read_params_yaml(BANK_PARAMS)
     W, H = 320, 240
     det = Detector(DetectorParams())
     views = {}
-    # The chip mesh is much smaller than the box: bring its camera in so
-    # the silhouette is big enough to carry >= 4 stable features.
-    for cid, stl, tscale, vids in (
-            ("box", "/boxNew.stl", 1.0, (40, 700, 1400, 2000)),
-            ("chip", "/memoryChip2.stl", 0.3, (100, 900, 300, 1500))):
-        r = Renderer(STL_DIR + stl, W, H, glob.focal_length_x / 2,
+    # The second class is a flat chip-sized cuboid, much smaller than the
+    # box: bring its camera in so the silhouette is big enough to carry
+    # >= 4 stable features.
+    chip = Mesh.from_triangles(box_triangles((0.03, 0.02, 0.005)))
+    for cid, mesh, tscale, vids in (
+            ("box", BOX_STL, 1.0, (40, 700, 1400, 2000)),
+            ("chip", chip, 0.3, (100, 900, 300, 1500))):
+        r = Renderer(mesh, W, H, glob.focal_length_x / 2,
                      glob.focal_length_y / 2)
         for vid in vids:
             if len(views.get(cid, [])) >= 2:
@@ -230,17 +233,17 @@ def test_multiclass_pooled_equals_per_frame_caps():
 def test_multiclass_pooled_serving_wrapper():
     """MultiClassBatchedMatcher(prune_mode='pooled') == default mode on a
     trained two-class detector."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.renderer import Renderer
-    from linemod_pose_estimation_tpu.models.serving import MultiClassBatchedMatcher
-    from linemod_pose_estimation_tpu.models.templates import (
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.renderer import Renderer
+    from linemod_pose_estimation.models.serving import MultiClassBatchedMatcher
+    from linemod_pose_estimation.models.templates import (
         DetectorParams, TemplateBank)
-    from conftest import SHIPPED_BANK, STL_DIR
+    from conftest import BANK_PARAMS, BOX_STL
 
-    meta, glob = TemplateBank.read_params_yaml(SHIPPED_BANK)
+    meta, glob = TemplateBank.read_params_yaml(BANK_PARAMS)
     W, H = 320, 240
     det = Detector(DetectorParams())
-    r = Renderer(STL_DIR + "/boxNew.stl", W, H, glob.focal_length_x / 2,
+    r = Renderer(BOX_STL, W, H, glob.focal_length_x / 2,
                  glob.focal_length_y / 2)
     outs = []
     for vid in (40, 700):

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.api.nodes import (
+from linemod_pose_estimation.api.nodes import (
     ReplayFrameSource,
     load_pcd_ascii,
     save_replay_frame,
 )
-from linemod_pose_estimation_tpu.utils.visualization import (
+from linemod_pose_estimation.utils.visualization import (
     StageTimer,
     draw_features,
     draw_rect,

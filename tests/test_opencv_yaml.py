@@ -1,20 +1,22 @@
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.utils import opencv_yaml as oy
-
-SHIPPED = "/root/reference/config/data/boxNew_longDistance_linemod_xtion_renderer_params.yml"
+from conftest import BANK_PARAMS
+from linemod_pose_estimation.models.templates import _maybe_ungz
+from linemod_pose_estimation.utils import opencv_yaml as oy
 
 
 def test_parse_shipped_bank():
-    doc = oy.load(SHIPPED)
+    """The committed 2652-view params bank parses through the PyYAML
+    reader (cv::FileStorage layout)."""
+    doc = oy.load(_maybe_ungz(BANK_PARAMS))
     assert "Template 0" in doc and "Template 2651" in doc
     t0 = doc["Template 0"]
     assert t0["ID"] == 0
     assert t0["R"].shape == (3, 3) and t0["R"].dtype == np.float64
     assert t0["T"].shape == (3, 1)
     assert t0["K"].shape == (3, 3) and t0["K"].dtype == np.float32
-    assert t0["Rect"] == [253, 148, 134, 184]
+    assert t0["Rect"] == [253, 195, 147, 105]
     np.testing.assert_allclose(t0["Ori_dist"], 0.5)
     assert doc["renderer_n_points"] == 150
     assert doc["renderer_width"] == 640
@@ -92,7 +94,7 @@ def test_read_genuine_opencv_linemod_bank():
     Detector::write/writeClass/Template::write/Feature::write layout,
     rgbdDetector.cpp:1668-1692): template entries carry no modality name
     (position encodes it), feature rows are [x, y, label]."""
-    from linemod_pose_estimation_tpu.models.templates import TemplateBank
+    from linemod_pose_estimation.models.templates import TemplateBank
 
     bank = TemplateBank.read_templates_yaml(GOLDEN_LINEMOD, f_cap=8)
     assert bank.class_id == "golden_obj"
@@ -116,7 +118,7 @@ def test_read_genuine_opencv_linemod_bank():
 
 def test_native_matches_pyyaml_on_opencv_bank():
     """Native C++ parser and PyYAML agree on a genuine OpenCV-layout bank."""
-    from linemod_pose_estimation_tpu.utils import native
+    from linemod_pose_estimation.utils import native
 
     if not native.available():
         pytest.skip("native loader not built")
@@ -140,7 +142,7 @@ def test_written_bank_feature_order_is_opencv(tmp_path):
     """Our writer emits Feature rows as [x, y, label] block sequences that
     cv2.FileStorage reads back verbatim."""
     cv2 = pytest.importorskip("cv2")
-    from linemod_pose_estimation_tpu.models.templates import (
+    from linemod_pose_estimation.models.templates import (
         DetectorParams, TemplateBank, TemplateFeatures,
     )
 
@@ -175,7 +177,7 @@ def test_render_dump_roundtrip(tmp_path, rng):
     """writeLinemodRender analog (renderer.cpp:125-146): Template i ->
     {ID, Depth u16, Mask u8, Rect} round-trips, and cv2.FileStorage reads
     the same matrices."""
-    from linemod_pose_estimation_tpu.models.templates import TemplateBank
+    from linemod_pose_estimation.models.templates import TemplateBank
 
     depths = [rng.integers(0, 1200, size=(24, 32), dtype=np.uint16) for _ in range(2)]
     masks = [(rng.random((24, 32)) < 0.5).astype(np.uint8) * 255 for _ in range(2)]
@@ -201,7 +203,7 @@ def test_depth_only_bank_roundtrip(tmp_path):
     """Depth-only banks (use_color_gradient=False) round-trip through both
     readers with correct modality labeling (round-2 review finding: the
     native parser used to assume ColorGradient-first and mislabeled them)."""
-    from linemod_pose_estimation_tpu.models.templates import (
+    from linemod_pose_estimation.models.templates import (
         DetectorParams, TemplateBank, TemplateFeatures,
     )
 

@@ -14,7 +14,7 @@ directly instead of asserted:
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.utils import oracle as ORC
+from linemod_pose_estimation.utils import oracle as ORC
 
 pytestmark = pytest.mark.skipif(
     not ORC.available(), reason="cv::linemod oracle not built"
@@ -41,8 +41,8 @@ def plant(patch, y, x):
 def test_our_bank_loads_in_real_opencv(tmp_path, rng):
     """Detector.write -> cv::linemod::Detector::read + readClass: identical
     template features (C14 interchange, the round-1 gap)."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch = textured_patch(rng)
     rgb, mask = plant(patch, 60, 100)
@@ -69,7 +69,7 @@ def test_our_bank_loads_in_real_opencv(tmp_path, rng):
 def test_real_opencv_bank_loads_in_ours(tmp_path, rng):
     """cv::linemod-written bank -> our readers (PyYAML + native C++):
     identical features."""
-    from linemod_pose_estimation_tpu.models.templates import TemplateBank
+    from linemod_pose_estimation.models.templates import TemplateBank
 
     patch = textured_patch(rng)
     rgb, mask = plant(patch, 60, 100)
@@ -95,8 +95,8 @@ def test_match_parity_identical_templates(tmp_path, rng):
     """Both engines, SAME templates (shared through the yml bridge), same
     scene: best similarity within 1 score unit, position within the T0-1 px
     quantization plateau, and 100%-vs-sub-threshold agreement on hit/miss."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch = textured_patch(rng)
     rgb, mask = plant(patch, 60, 100)
@@ -134,8 +134,8 @@ def test_match_parity_own_extractions(rng):
     """Each engine trains with ITS OWN feature extraction on the same view,
     then matches the same shifted scene: both must find it at ~100% within
     the plateau distance of each other (end-to-end engine equivalence)."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch = textured_patch(rng)
     rgb, mask = plant(patch, 60, 100)
@@ -162,7 +162,7 @@ def test_exact_position_parity_shift_grid(tmp_path, rng):
     (covers every phase of the T0=5 report grid — the configuration that
     used to land on different plateau corners).  VERDICT r3 item 5: px_delta
     must be exactly 0 on identical inputs."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
+    from linemod_pose_estimation.models.detector import Detector
 
     patch = textured_patch(rng)
     rgb, mask = plant(patch, 60, 100)
@@ -192,7 +192,7 @@ def test_quantization_parity_color_exact(rng):
     fastAtan2 polynomial, half-even convertTo, border-zeroed 3x3 vote)."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     o = ORC.LinemodOracle()
     imgs = []
@@ -215,7 +215,7 @@ def test_quantization_parity_color(rng):
     orientation bit on >=99% of commonly-quantized pixels."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     cells = rng.integers(0, 255, size=(30, 40, 3), dtype=np.uint8)
     rgb = np.repeat(np.repeat(cells, 8, 0), 8, 1)  # (240, 320, 3)
@@ -240,7 +240,7 @@ def test_quantization_parity_depth(rng):
     hit one."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     o = ORC.LinemodOracle(use_depth=True)
 
@@ -270,7 +270,7 @@ def test_quantization_parity_color_level1(rng):
     (unrounded f32 pyramids flip ~3% of level-1 bins on noise images)."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     o = ORC.LinemodOracle()
     for _ in range(2):
@@ -289,7 +289,7 @@ def test_quantization_parity_depth_level1(rng):
     (DepthNormalPyramid::pyrDown), not a re-quantize of decimated depth."""
     import jax.numpy as jnp
 
-    from linemod_pose_estimation_tpu.ops import features as F
+    from linemod_pose_estimation.ops import features as F
 
     o = ORC.LinemodOracle(use_depth=True)
     ys, xs = np.mgrid[0:H, 0:W]

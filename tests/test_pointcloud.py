@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.utils import pointcloud as pc
-from linemod_pose_estimation_tpu.utils.geometry import make_K
+from linemod_pose_estimation.utils import pointcloud as pc
+from linemod_pose_estimation.utils.geometry import make_K
 
 
 def test_depth_cloud_roundtrip(rng):

@@ -15,7 +15,7 @@ import numpy as np
 sys.path.insert(0, "tests")
 from test_prune import C, KC, T1, _bank, _frames, _plant, _valid_set
 
-from linemod_pose_estimation_tpu.ops import match as M
+from linemod_pose_estimation.ops import match as M
 
 G = 4
 
@@ -51,6 +51,21 @@ def test_gather_windows_pooled_matches_direct(rng):
     for m in range(Mn):
         want = L[frame[m], r0[m]:r0[m] + K, c0[m]:c0[m] + K]
         np.testing.assert_array_equal(got[m], want)
+
+
+def test_gather_windows_pooled_zero_past_plane(rng):
+    """Windows reaching past the stacked plane read zeros there."""
+    G, Wx, Ct, K, Mn = 20, 12, 64, 4, 23
+    L = rng.integers(1, 5, size=(G, Wx, Ct)).astype(np.int8)
+    r0 = rng.integers(0, G - 1, size=(Mn,)).astype(np.int32)
+    c0 = rng.integers(0, Wx - 1, size=(Mn,)).astype(np.int32)
+    got = np.asarray(M.gather_windows_pooled(
+        jnp.asarray(L), jnp.asarray(r0), jnp.asarray(c0), K
+    )).reshape(Mn, K, K, Ct)
+    Lp = np.pad(L, [(0, K), (0, K), (0, 0)])
+    for m in range(Mn):
+        np.testing.assert_array_equal(
+            got[m], Lp[r0[m]:r0[m] + K, c0[m]:c0[m] + K])
 
 
 def test_pooled_equals_exhaustive(rng):
@@ -178,9 +193,9 @@ def test_select_row_cap_overflow_falls_back(rng):
 def test_batched_matcher_pooled_mode(rng):
     """BatchedMatcher(prune_mode='pooled') agrees with the exhaustive
     matcher on real rendered templates (valid sets, bit-exact sims)."""
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.serving import BatchedMatcher
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.serving import BatchedMatcher
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     from test_match import make_object_patch, plant
 
@@ -257,39 +272,3 @@ def test_grouped_prebound_equals_ungrouped(rng):
     )
     assert bool(grp_of[2].fallback)
     assert _valid_set(grp_of[0]) == _valid_set(base[0])
-
-
-def test_m_chunked_dot_bitwise_equal(rng):
-    """m_chunk splits the pooled survivor dot into sequential row-chunk
-    dots (an MXU-rate knob for large M on v5e); scores and the full
-    orchestrator output must be bit-identical, including a chunk that
-    does not divide the pool size."""
-    n = 64
-    feats = _bank(rng, n)
-    Rb = np.array(_frames(rng, b=3))
-    for b, (tid, py, px) in enumerate([(3, 2, 4), (10, 7, 9), (40, 1, 11)]):
-        Rb = _plant(Rb, feats, tid, b, py, px)
-    Rb = jnp.asarray(Rb)
-    Hc, Wcc = Rb.shape[2] // T1, Rb.shape[3] // T1
-    vpos = M.position_validity_flat(feats.size, T1, Hc, Wcc)
-    Wg, Wc, Wf = _weights(feats)
-    thr, top_k = 85.0, 64
-
-    # Raw GEMM twin at arbitrary pool candidates.
-    Mn = 37
-    frame = jnp.asarray(rng.integers(0, 3, size=(Mn,)).astype(np.int32))
-    pos = jnp.asarray(rng.integers(0, Hc * Wcc, size=(Mn,)).astype(np.int32))
-    base = M.coarse_scores_gemm_pooled(Rb, Wg, frame, pos, T1, KC)
-    for chunk in (8, 16, 37, 64):
-        got = M.coarse_scores_gemm_pooled(Rb, Wg, frame, pos, T1, KC,
-                                          m_chunk=chunk)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(base))
-
-    kw = dict(pool1=512, pool2=256, top_k=top_k, Wc=Wcc, r_cap=512)
-    ref = M.match_pooled_fine_with_fallback(
-        Rb, Wg, Wc, Wf, feats.count, vpos, thr, T1, KC, G, **kw)
-    chk = M.match_pooled_fine_with_fallback(
-        Rb, Wg, Wc, Wf, feats.count, vpos, thr, T1, KC, G, m_chunk=96, **kw)
-    assert not bool(chk[2].fallback)
-    assert _valid_set(chk[0]) == _valid_set(ref[0])
-    np.testing.assert_array_equal(np.asarray(chk[1]), np.asarray(ref[1]))

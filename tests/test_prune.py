@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.ops import match as M
+from linemod_pose_estimation.ops import match as M
 
 T1 = 8
 C = 16
@@ -97,8 +97,7 @@ def test_pruned_candidates_equal_exhaustive(rng):
 
     raw = M.coarse_scores_gemm_flat_batched(Rb, W_gemm, T1, KC)
     ref = [
-        M.select_candidates_flat(raw[b], feats.count, vpos, thr, top_k, Wc,
-                                 exact=True)
+        M.select_candidates_flat(raw[b], feats.count, vpos, thr, top_k, Wc)
         for b in range(B)
     ]
     ref_sets = [_valid_set(r) for r in ref]
@@ -113,7 +112,7 @@ def test_pruned_candidates_equal_exhaustive(rng):
     raw_sub = M.coarse_scores_gemm_flat_batched_sub(Rb, W_rows, pr.idx, T1, KC)
     got = [
         M.select_candidates_flat_sub(raw_sub[b], feats.count, vpos, pr.idx,
-                                     pr.keep, thr, top_k, Wc, exact=True)
+                                     pr.keep, thr, top_k, Wc)
         for b in range(B)
     ]
     for b in range(B):
@@ -159,7 +158,7 @@ def test_plan_two_axis_equals_exhaustive(rng):
     raw = M.coarse_scores_gemm_flat_batched(Rb, W_gemm, T1, KC)
     ref_sets = [
         _valid_set(M.select_candidates_flat(raw[b], feats.count, vpos, thr,
-                                            top_k, Wc, exact=True))
+                                            top_k, Wc))
         for b in range(B)
     ]
     assert all(len(s) for s in ref_sets)
@@ -173,7 +172,7 @@ def test_plan_two_axis_equals_exhaustive(rng):
     for b in range(B):
         got = M.select_candidates_flat_sub2(
             raw_sub[b], feats.count, vpos, plan.t_idx, plan.t_keep,
-            plan.p_idx[b], plan.p_keep[b], thr, top_k, Wc, exact=True)
+            plan.p_idx[b], plan.p_keep[b], thr, top_k, Wc)
         assert _valid_set(got) == ref_sets[b]
 
 
@@ -197,7 +196,7 @@ def test_position_only_equals_exhaustive(rng):
     raw = M.coarse_scores_gemm_flat_batched(Rb, W_gemm, T1, KC)
     ref_sets = [
         _valid_set(M.select_candidates_flat(raw[b], feats.count, vpos, thr,
-                                            top_k, Wc, exact=True))
+                                            top_k, Wc))
         for b in range(B)
     ]
     assert all(len(s) for s in ref_sets)
@@ -211,7 +210,7 @@ def test_position_only_equals_exhaustive(rng):
     for b in range(B):
         got = M.select_candidates_flat_pos(
             raw_sub[b], feats.count, vpos, plan.p_idx[b], plan.p_keep[b],
-            thr, top_k, Wc, exact=True)
+            thr, top_k, Wc)
         assert _valid_set(got) == ref_sets[b]
 
 
@@ -248,9 +247,9 @@ def test_batched_matcher_prune_matches_exhaustive(rng):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.serving import BatchedMatcher
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.serving import BatchedMatcher
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch, mask = make_object_patch(rng)
     det = Detector(DetectorParams(), engine="gather")
@@ -334,13 +333,10 @@ def test_fallback_on_overflow_equals_exhaustive(rng):
 
 
 def test_prune_int32_fallback_for_large_feature_counts(rng):
-    """Banks whose total_features exceed the int16-safe bound (nf > 8191,
-    or t_int > 32767) must take the in-graph int32 margin path and keep
-    the survivor plan identical to a small-count bank scaled the same way:
-    only the count SCALE changes the threshold, so a bank with counts
-    multiplied by k and threshold t has the same eligibility as the
-    original at t (t_int scales linearly).  Regression for the int16
-    accumulation wrap (advisor round 4)."""
+    """Banks whose total_features exceed int16 range (nf > 8191, or
+    t_int > 32767) must keep the survivor plan equal to a plain int32 hand
+    reference: the margin pass accumulates in int32, so large counts can
+    never wrap.  Regression for the old int16 accumulation wrap."""
     n, thr = 32, 80.0
     feats = _bank(rng, n)
     Rb = jnp.asarray(_frames(rng, b=1, sparse=0.5, hi=3))
@@ -374,8 +370,7 @@ def test_prune_int32_fallback_for_large_feature_counts(rng):
     }
     assert got_elig == ref_elig
     assert int(big.m_survivors[0]) == len(ref_elig)
-    # And the small-count path (int16) still matches its own int32 hand
-    # reference (the cond's other branch).
+    # And the small-count bank matches its own int32 hand reference.
     t16 = jnp.ceil((thr - 1e-3) * 0.04
                    * feats.count.astype(jnp.float32) - 1e-4).astype(jnp.int32)
     m16 = jnp.where(vpos, ub - t16[None, :], -(2 ** 30))
@@ -434,7 +429,7 @@ def test_fine_path_equals_exhaustive(rng):
     raw = M.coarse_scores_gemm_flat_batched(Rb, W_gemm, T1, KC)
     ref_sets = [
         _valid_set(M.select_candidates_flat(raw[b], feats.count, vpos, thr,
-                                            top_k, Wc, exact=True))
+                                            top_k, Wc))
         for b in range(B)
     ]
     assert all(len(s) for s in ref_sets)
@@ -452,8 +447,7 @@ def test_fine_path_equals_exhaustive(rng):
         Rb, W_gemm, W_cell, W_fine, feats.count, vpos, thr,
         T1, KC, g, m_cap=Hc * Wc, m2_cap=Hc * Wc, top_k=top_k, Wc=Wc)
     assert not bool(pp2.overflow) and not bool(fp.overflow)
-    # exact=False path uses approx_max_k inside the orchestrator; compare
-    # the valid sets (the orchestrator's select is approx like production).
+    # Compare the valid sets (the orchestrator selects like production).
     for b in range(B):
         got = _valid_set(M.CoarseMatches(*(a[b] for a in cands)))
         assert got == ref_sets[b]
@@ -480,7 +474,7 @@ def test_fine_overflow_falls_back_coarse(rng):
     raw = M.coarse_scores_gemm_flat_batched(Rb, W_gemm, T1, KC)
     ref_sets = [
         _valid_set(M.select_candidates_flat(raw[b], feats.count, vpos, thr,
-                                            top_k, Wc, exact=True))
+                                            top_k, Wc))
         for b in range(B)
     ]
     cands, pp, fp = M.match_coarse_pruned_fine_with_fallback(

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.models.grasp import grasping_pose_region_growing
-from linemod_pose_estimation_tpu.ops import segmentation as seg
+from linemod_pose_estimation.models.grasp import grasping_pose_region_growing
+from linemod_pose_estimation.ops import segmentation as seg
 
 
 def two_planes(rng, n_each=150, gap=0.3):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.api import transforms as TR
-from linemod_pose_estimation_tpu.api.service import Frame, PoseService, condition_frame
+from linemod_pose_estimation.api import transforms as TR
+from linemod_pose_estimation.api.service import Frame, PoseService, condition_frame
 
 
 def test_identity_on_unknown_object():

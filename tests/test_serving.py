@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.models.serving import look_at_point
+from linemod_pose_estimation.models.serving import look_at_point
 
 
 def test_look_at_point_center_and_fallback():
@@ -22,9 +22,10 @@ def test_look_at_point_center_and_fallback():
 
 
 def test_graft_entry_compiles_single_chip():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from __graft_entry__ import entry
 
     fn, args = entry()
@@ -37,10 +38,9 @@ def test_batched_matcher_consistent_with_single(rng):
     """BatchedMatcher must agree with per-frame match on identical frames."""
     import sys
 
-    sys.path.insert(0, "/root/repo")
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.serving import BatchedMatcher
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.serving import BatchedMatcher
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
@@ -81,12 +81,12 @@ def test_streaming_multicamera_batched_inference(rng):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.api.service import Frame
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.serving import BatchedMatcher
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
-    from linemod_pose_estimation_tpu.parallel.ingest import FrameBatcher, put_global_batch
-    from linemod_pose_estimation_tpu.parallel.mesh import make_mesh
+    from linemod_pose_estimation.api.service import Frame
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.serving import BatchedMatcher
+    from linemod_pose_estimation.models.templates import DetectorParams
+    from linemod_pose_estimation.parallel.ingest import FrameBatcher, put_global_batch
+    from linemod_pose_estimation.parallel.mesh import make_mesh
 
     patch, mask = make_object_patch(rng)
     src = plant((120, 160, 3), patch, (30, 50))

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.ops import match as M
-from linemod_pose_estimation_tpu.parallel import mesh as PM
-from linemod_pose_estimation_tpu.parallel.sharded_match import (
+from linemod_pose_estimation.ops import match as M
+from linemod_pose_estimation.parallel import mesh as PM
+from linemod_pose_estimation.parallel.sharded_match import (
     make_sharded_bank,
     make_sharded_coarse_matcher,
     make_sharded_detect_step,
@@ -136,8 +136,8 @@ def test_sharded_detect_equals_single_device(rng, mesh8):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch, mask = make_object_patch(rng)
     src = plant((128, 128, 3), patch, (30, 50))
@@ -196,8 +196,8 @@ def test_frame_batcher_and_global_put(rng, mesh8):
     make_array_from_process_local_data (multi-host compatible)."""
     from jax.sharding import PartitionSpec as P
 
-    from linemod_pose_estimation_tpu.api.service import Frame
-    from linemod_pose_estimation_tpu.parallel.ingest import FrameBatcher, put_global_batch
+    from linemod_pose_estimation.api.service import Frame
+    from linemod_pose_estimation.parallel.ingest import FrameBatcher, put_global_batch
 
     frames = [
         Frame(rgb=np.full((8, 8, 3), i, np.uint8), cloud=np.zeros((8, 8, 3), np.float32))
@@ -230,10 +230,10 @@ def test_row_sharded_matcher_equals_single_device(rng, mesh8):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
-    from linemod_pose_estimation_tpu.ops import match as M
-    from linemod_pose_estimation_tpu.parallel.sharded_match import (
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
+    from linemod_pose_estimation.ops import match as M
+    from linemod_pose_estimation.parallel.sharded_match import (
         make_row_sharded_matcher,
     )
 
@@ -291,9 +291,9 @@ def test_ring_detect_equals_single_device(rng):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
-    from linemod_pose_estimation_tpu.parallel.sharded_match import (
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
+    from linemod_pose_estimation.parallel.sharded_match import (
         make_ring_bank, make_ring_detect_step,
     )
 
@@ -355,8 +355,8 @@ def test_sharded_pooled_mode_equals_positions_mode(rng, mesh8):
     sys.path.insert(0, "tests")
     from test_match import make_object_patch, plant
 
-    from linemod_pose_estimation_tpu.models.detector import Detector
-    from linemod_pose_estimation_tpu.models.templates import DetectorParams
+    from linemod_pose_estimation.models.detector import Detector
+    from linemod_pose_estimation.models.templates import DetectorParams
 
     patch, mask = make_object_patch(rng)
     src = plant((128, 128, 3), patch, (30, 50))

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.models.serving import PipelinedRunner
-from linemod_pose_estimation_tpu.parallel.ingest import FrameBatcher, PacedSource
+from linemod_pose_estimation.models.serving import PipelinedRunner
+from linemod_pose_estimation.parallel.ingest import FrameBatcher, PacedSource
 
 
 def test_pipelined_runner_order_and_equality():

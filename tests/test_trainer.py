@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.templates import DetectorParams, TemplateBank
-from linemod_pose_estimation_tpu.models.trainer import TrainerConfig, train_and_write
-from linemod_pose_estimation_tpu.utils.viewsphere import ViewSphereParams, generate_views
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.templates import DetectorParams, TemplateBank
+from linemod_pose_estimation.models.trainer import TrainerConfig, train_and_write
+from linemod_pose_estimation.utils.viewsphere import ViewSphereParams, generate_views
 
-STL = "/root/reference/config/stl/boxNew.stl"
+from conftest import BOX_STL as STL
 
 
 def small_config():
@@ -57,7 +57,7 @@ def test_trainer_produces_bank_and_yaml(tmp_path):
     assert det2.num_templates("obj") == n
 
     # A trained view re-renders and matches itself.
-    from linemod_pose_estimation_tpu.models.renderer import Renderer
+    from linemod_pose_estimation.models.renderer import Renderer
 
     r = Renderer(STL, 160, 120, 535.566011 / 4, 537.168115 / 4)
     out = r.render(meta.R[0], meta.T[0])

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from linemod_pose_estimation_tpu.ops import verification as V
-from linemod_pose_estimation_tpu.utils.geometry import make_K
+from linemod_pose_estimation.ops import verification as V
+from linemod_pose_estimation.utils.geometry import make_K
 
 
 def make_scene(depth_base=500.0, tilt=0.0):

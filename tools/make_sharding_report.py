@@ -3,10 +3,9 @@
 Runs the PRODUCTION sharded detect step (parallel.sharded_match.
 make_sharded_detect_step, prune="positions") on the committed real
 trained bank tiled to 10k+ templates, over a data=2 x bank=4 mesh of 8
-virtual host devices, and records the scale-out math the 1000-fps story
-leans on: per-shard template counts, per-shard array bytes (the GEMM
+virtual host devices, and records the scale-out math: per-shard template counts, per-shard array bytes (the GEMM
 weight shard is the big one), per-shard survivor-GEMM shapes, and the
-ICI collective payload (all-gather of O(top_k) match records + scalar
+collective payload (all-gather of O(top_k) match records + scalar
 psums) — the wire traffic is independent of bank size.
 
 Usage (from the repo root):
@@ -14,13 +13,11 @@ Usage (from the repo root):
       python tools/make_sharding_report.py
 """
 
-import gzip
 import json
 import os
-import shutil
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ["JAX_PLATFORMS"] = "cpu"  # the report runs on virtual CPU devices
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     flags += " --xla_force_host_platform_device_count=8"
@@ -36,48 +33,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from linemod_pose_estimation_tpu.models.detector import Detector  # noqa: E402
-from linemod_pose_estimation_tpu.models.templates import TemplateBank  # noqa: E402
-from linemod_pose_estimation_tpu.ops import match as M  # noqa: E402
-from linemod_pose_estimation_tpu.parallel.sharded_match import (  # noqa: E402
+from linemod_pose_estimation.models.detector import Detector  # noqa: E402
+from linemod_pose_estimation.models.templates import TemplateBank  # noqa: E402
+from linemod_pose_estimation.ops import match as M  # noqa: E402
+from linemod_pose_estimation.parallel.sharded_match import (  # noqa: E402
     make_ring_bank, make_ring_detect_step, make_row_sharded_matcher,
     make_sharded_bank, make_sharded_detect_step,
 )
 
 
-def _gunzip(stem):
-    tpl_gz = os.path.join(REPO, "data", f"{stem}_templates.yml.gz")
-    prm_gz = os.path.join(REPO, "data", f"{stem}_params.yml.gz")
-    if not (os.path.exists(tpl_gz) and os.path.exists(prm_gz)):
-        return None, None
-    tpl, prm = f"/tmp/shard_{stem}_t.yml", f"/tmp/shard_{stem}_p.yml"
-    for src, dst in ((tpl_gz, tpl), (prm_gz, prm)):
-        if not os.path.exists(dst):
-            with gzip.open(src, "rb") as f, open(dst, "wb") as g:
-                shutil.copyfileobj(f, g)
-    return tpl, prm
-
-
-def _tile(f, reps, pad_to):
-    """Delegate to bench._tile_features — the ONE tiling used by every
-    benchmark/profile tool, so a fix to the size sentinel or live-mask
-    padding there reaches this report too."""
-    import bench as BM
-    return BM._tile_features(f, reps, pad_to)
-
-
 def main():
-    for stem in ("boxNew_rgbd", "boxNew_full"):
-        tpl, prm = _gunzip(stem)
-        if tpl:
-            break
+    import bench as BM
+
+    tpl, prm = BM._bank_paths()
     det = Detector.read(tpl)
     bank = det.bank(det.class_ids[0])
     p = det.params
@@ -89,8 +61,8 @@ def main():
     n0 = bank.num_templates
     reps = max(1, -(-10240 // n0))
     N = ((n0 * reps + 127) // 128) * 128
-    feats1 = _tile(bank.merged_features(1), reps, N)
-    feats0 = _tile(bank.merged_features(0), reps, N)
+    feats1 = M.tile_level_features(bank.merged_features(1), reps, N)
+    feats0 = M.tile_level_features(bank.merged_features(0), reps, N)
 
     devices = np.array(jax.devices()[:8]).reshape(2, 4)
     mesh = Mesh(devices, ("data", "bank"))
@@ -101,18 +73,18 @@ def main():
     step = make_sharded_detect_step(
         mesh, T1, Kc1, top_k, thr, T0=T0, E0=E0, use_depth=use_depth,
         weak_threshold=p.color.weak_threshold, prune=True,
-        prune_pos_cap=m_cap, prune_mode="positions", use_pallas_refine=False,
+        prune_pos_cap=m_cap, prune_mode="positions",
     )
     # Real bin-picking scenes (rendered views planted on clutter), not
     # noise: the step_output then proves the sharded step FINDS the
     # object at reference scale, not merely that it executes.
-    import bench as BM
-    from linemod_pose_estimation_tpu.models.renderer import Renderer
+    from linemod_pose_estimation.models.renderer import Renderer
+    from linemod_pose_estimation.utils.scenes import bin_picking_scenes
     meta, glob = TemplateBank.read_params_yaml(prm)
-    r = Renderer("/root/reference/config/stl/boxNew.stl", glob.width,
-                 glob.height, glob.focal_length_x, glob.focal_length_y)
+    r = Renderer(BM.BOX_STL, glob.width, glob.height, glob.focal_length_x,
+                 glob.focal_length_y)
     rng = np.random.default_rng(0)
-    frames, depths_np, _ = BM._real_scenes(r, meta, B, H, W, rng)
+    frames, depths_np, _ = bin_picking_scenes(r, meta, B, H, W, rng)
     rgbs = jnp.asarray(frames)
     depths = jnp.asarray(depths_np)
     matches, metrics = step(rgbs, depths, sb)
@@ -133,7 +105,7 @@ def main():
             np.asarray(a).nbytes for a in sb.feats1) // n_bank
             + sum(np.asarray(a).nbytes for a in sb.feats0) // n_bank),
     }
-    # ICI wire per step: all-gather of per-shard refined Matches over the
+    # Wire bytes per step: all-gather of per-shard refined Matches over the
     # bank axis (every shard sends its (B_local, top_k) records), then
     # scalar psums.  Independent of N.
     B_local = B // n_data
@@ -194,10 +166,9 @@ def main():
     ring_step = make_ring_detect_step(
         ring_mesh, "ring", T1, Kc1, top_k, thr, T0=T0, E0=E0,
         use_depth=use_depth, weak_threshold=p.color.weak_threshold,
-        use_pallas_refine=False,
     )
     print("[shard] ring: compiling + executing...", file=sys.stderr)
-    frames_r, depths_r, _ = BM._real_scenes(r, meta, n_ring, H, W, rng)
+    frames_r, depths_r, _ = bin_picking_scenes(r, meta, n_ring, H, W, rng)
     lowered = ring_step.lower(jnp.asarray(frames_r), jnp.asarray(depths_r), rb)
     hlo = lowered.compile().as_text()
     n_cp = hlo.count(" collective-permute(")
@@ -226,7 +197,7 @@ def main():
             "note": "the ppermute of shard t+1 is issued BEFORE step t's "
                     "GEMM (sharded_match.py make_ring_detect_step), so "
                     "XLA's async collective-permute streams the next "
-                    "shard over ICI while the current GEMM runs; on the "
+                    "shard across devices while the current GEMM runs; on the "
                     "CPU virtual mesh the lowering may fuse to sync "
                     "collective-permute ops — the async pair count above "
                     "records what this backend emitted",

@@ -1,6 +1,6 @@
 """Reconstruct cv::linemod's DepthNormal NORMAL_LUT by black-box probing.
 
-Produces `linemod_pose_estimation_tpu/ops/normal_lut_calib.npz` — the
+Produces `linemod_pose_estimation/ops/normal_lut_calib.npz` — the
 (11, 21, 21) uint8 table `lut` over truncated-discretized normalized
 (nz, ny, nx) (GRANULARITY 10) plus a boolean `probed` mask — used by
 ops.features.quantize_depth_normal to be bit-exact with the genuine
@@ -50,7 +50,7 @@ sys.path.insert(0, REPO)
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-from linemod_pose_estimation_tpu.utils import oracle as ORC  # noqa: E402
+from linemod_pose_estimation.utils import oracle as ORC  # noqa: E402
 
 G = 10
 L_R = 5
@@ -148,7 +148,7 @@ class Prober:
 
 def main(out_path=None):
     out_path = out_path or os.path.join(
-        REPO, "linemod_pose_estimation_tpu", "ops", "normal_lut_calib.npz")
+        REPO, "linemod_pose_estimation", "ops", "normal_lut_calib.npz")
     pr = Prober()
     ys, xs = np.mgrid[0:64, 0:64]
     par = ((ys + xs) % 2) == 0

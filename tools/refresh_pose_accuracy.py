@@ -18,29 +18,24 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from linemod_pose_estimation.utils.compile_cache import configure_compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.environ.get("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
+configure_compile_cache()
 
 import numpy as np
 
-from linemod_pose_estimation_tpu import eval as EV
-from linemod_pose_estimation_tpu.models import cascade as CC
-from linemod_pose_estimation_tpu.models.detector import Detector
-from linemod_pose_estimation_tpu.models.pipeline import DetectionPipeline
-from linemod_pose_estimation_tpu.models.renderer import Renderer
-from linemod_pose_estimation_tpu.models.templates import (
+from linemod_pose_estimation import eval as EV
+from linemod_pose_estimation.models import cascade as CC
+from linemod_pose_estimation.models.detector import Detector
+from linemod_pose_estimation.models.pipeline import DetectionPipeline
+from linemod_pose_estimation.models.renderer import Renderer
+from linemod_pose_estimation.models.templates import (
     DetectorParams, TemplateBank, TemplateMetadata,
 )
 
-BANK = "/root/reference/config/data/boxNew_longDistance_linemod_xtion_renderer_params.yml"
-STL = "/root/reference/config/stl/boxNew.stl"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANK = os.path.join(REPO, "data", "boxNew_rgbd_params.yml.gz")
+STL = os.path.join(REPO, "data", "box_fitted.stl")
 W, H = 640, 480
 N_TRAIN = 100
 N_POSE = 50
